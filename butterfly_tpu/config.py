@@ -48,13 +48,10 @@ class DeviceConfig:
 
     dtype: dtype for packed factors on device. float32 keeps rel-err vs dense
       near 1e-7 per level; float64 (requires jax_enable_x64) matches the
-      reference's BF_DOUBLE accuracy but doesn't ride the MXU.
-    block_pad: pad block dims up to a multiple of this (MXU tile = 128; small
-      problems use smaller pads to avoid pathological padding waste).
-    use_pallas: use the fused Pallas gather-GEMM kernel when possible, else
-      pure-XLA gather + batched einsum.
+      reference's BF_DOUBLE accuracy at a fraction of the matmul rate.
+    block_pad: pad block dims up to a multiple of this (small problems use
+      smaller pads to avoid pathological padding waste).
     """
 
     dtype: Any = np.float32
     block_pad: int = 128
-    use_pallas: bool = True

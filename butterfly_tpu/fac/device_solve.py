@@ -4,13 +4,13 @@ The reference's fast-direct-solver SOLVE walks the recursive node tree on
 the host, one BLAS call per block (fast_direct_solver.py:752-762). Our
 builder (fac/solver.py) is rightly host-f64 — factorization is setup time —
 but the AMORTIZED path (many right-hand sides through one factorization)
-wants the substitution's GEMMs on the MXU.
+wants the substitution's GEMMs on the device.
 
 `DeviceSolver` compiles a `FastDirectSolver` into one jitted program:
 
 - leaf `_DenseLU` nodes become explicit inverses (computed once from the
-  stored LU, host f64, shipped f32) applied as dense GEMMs — the TPU has
-  no fast small triangular solve, and an explicit inverse of a
+  stored LU, host f64, shipped f32) applied as dense GEMMs — batched small
+  triangular solves are slow next to GEMMs, and an explicit inverse of a
   well-conditioned <=base_size block is benign;
 - each node's compressed off-diagonal operators A21/A12 (middle-out
   butterfly Products or Dense, fac/middle_out.py) are packed once into
@@ -18,7 +18,7 @@ wants the substitution's GEMMs on the MXU.
 - the recursion UNROLLS AT TRACE TIME (the node tree is static), so the
   whole forward/backward substitution is one XLA program.
 
-f32 on TPU caps a single pass at ~1e-6; `solve_refined` wraps the device
+Device f32 caps a single pass at ~1e-6; `solve_refined` wraps the device
 solve in classical mixed-precision iterative refinement — host-f64
 residual, device-f32 correction — converging to f64-level residuals in
 2-3 passes (each pass costs one operator apply + one device solve).

@@ -336,8 +336,8 @@ def _distill_from_cols(
 
     import jax.numpy as jnp
 
-    # "highest" dot precision: TPU's DEFAULT demotes f32 matmuls to one
-    # bf16 MXU pass (~1e-3 rel err), which would swamp the distillation's
+    # "highest" dot precision: a DEFAULT-precision f32 matmul may run in
+    # TF32 (~1e-3 rel err), which would swamp the distillation's
     # own truncation error and break the BASELINE <=1e-6 clause.
     bf = UniformButterfly(
         jnp.asarray(leaf.astype(dtype)),
@@ -509,7 +509,7 @@ def _distill_device_impl(
     """Device-resident distillation: same complementary-low-rank merge
     recursion as `distill_butterfly`, but every step — column-block QR,
     stacked-basis QR, small SVDs, basis updates — runs as ONE batched XLA
-    op per level on the TPU. The input is a dense (n, m) device array, or a
+    op per level on the device. The input is a dense (n, m) device array, or a
     BATCH (B, n, m) of same-shape operators folded into the block axis
     (the result applies block-diag(M_b) with log2(num_blocks) levels).
     Nothing round-trips through the host, which matters on hosts whose CPU

@@ -1,13 +1,13 @@
 """Analytic 2-D Helmholtz butterfly factorization.
 
-TPU-native redesign of the reference's analytic factorization engine
+JAX redesign of the reference's analytic factorization engine
 (src/fac_helm2.c:42-1002). The mathematical construction is identical —
 proxy-circle re-expansion on a quadtree, one block-diagonal charge-shift
 factor at the leaves, block-COO shift factors per level pair, and a final
 block-diagonal evaluation factor — but the output is the compositional
 `LinOp` algebra (BlockDiag / BlockCoo / Product / BlockDense) built from
 batched NumPy kernel assembly rather than a vtable object graph, and is then
-compiled by `ops/packed.py` into level-synchronous batched GEMMs for the MXU.
+compiled by `ops/packed.py` into level-synchronous batched GEMMs.
 
 Construction is host-side setup work; apply is the device hot path.
 """
@@ -238,7 +238,7 @@ def _make_inner_factor(
     # by (num_rows, num_cols) shape class so each class costs one stacked
     # kernel evaluation + one stacked SVD least-squares instead of
     # per-block Python calls (reference loop: src/fac_helm2.c:324-391; the
-    # batching is the TPU-era redesign — per-block np.linalg.lstsq overhead
+    # batching is this redesign — per-block np.linalg.lstsq overhead
     # was ~44% of setup time at n=8k).
     use_normals = helm_proxy.layer_pot in USES_SRC_NORMALS
     groups: dict = {}

@@ -1,7 +1,7 @@
 """Randomized middle-out MULTILEVEL butterfly sampling of matrix-free
 operators.
 
-TPU-native redesign of the reference's randomized reflector compression
+JAX redesign of the reference's randomized reflector compression
 (sample_middle_out_butterfly,
 examples/fast_direct_solver/fast_direct_solver.py:404-607). The operator R,
 accessible only through (r)matvecs, is compressed into

@@ -1,6 +1,6 @@
 """Streaming algebraic butterfly factorizer (merge-and-split).
 
-TPU-native redesign of the reference's algebraic engine
+JAX redesign of the reference's algebraic engine
 (src/fac.c:509-1294, src/fac_streamer.c:35-556): compresses ANY matrix fed
 to it column-block by column-block into a butterfly-like product
 
@@ -13,7 +13,7 @@ through the row tree and re-splitting each merged Psi* block at an
 epsilon-rank cut — but the data representation is the LinOp algebra
 (BlockDiag / BlockDense / Identity), the SVDs are batched NumPy f64
 (setup-time host math), and the finished factorization compiles through
-`ops/packed.py` / uniformization into MXU batched GEMMs for apply.
+`ops/packed.py` / uniformization into batched GEMMs for apply.
 
 This engine is what compresses Laplace-Beltrami eigenvector matrices
 ("frequency-domain butterflies"), covariance operators, and the randomized

@@ -1,10 +1,10 @@
-"""The fac -> device bridge: factorized operators onto the MXU.
+"""The fac -> device bridge: factorized operators onto the accelerator.
 
 The reference's entire value is applying a *factorized* operator fast — its
 apply path walks the recursive factor graph making one tiny BLAS call per
 block (bfFacGetMatProduct apply loop, src/fac.c:133-146;
 bfMatBlockDenseMulVec, src/mat_block_dense.c:574-630). This module is the
-TPU-native replacement for that hot path: it takes the REAL outputs of the
+device replacement for that hot path: it takes the REAL outputs of the
 factorization engines —
 
 - a `PartialFac` from the streaming factorizer (fac/streamer.py),
@@ -12,16 +12,17 @@ factorization engines —
 - any LinOp expression over them,
 
 — buckets the data-dependent ("ragged") block ranks per stage, pads each
-bucket to an MXU-friendly tile, and emits an executable `StagePlan` whose
+bucket to a matmul-friendly tile, and emits an executable `StagePlan` whose
 apply is a handful of batched (B, m, k) x (B, k, r) GEMMs per level. Rank
 bucketing/padding is the central perf/accuracy trade SURVEY.md §7 flags;
 `choose_block_align` makes the trade measurable by estimating padding waste
 and bucket counts for candidate tile sizes before any device memory is
 committed, and every plan reports achieved `padding_waste`.
 
-Complex factorizations (the Helmholtz path) are mapped onto real buffers via
-the 2x2 embedding at pack time (ops/packed.py `real_embed`) because the TPU
-backend has no complex dtypes; flop accounting stays exact.
+Complex factorizations (the Helmholtz path) can be mapped onto real buffers
+via the 2x2 embedding at pack time (ops/packed.py `real_embed`) for the
+real-only consumers (interleaved partition layout, real GMRES drivers);
+flop accounting stays exact.
 """
 
 from __future__ import annotations
@@ -45,38 +46,7 @@ __all__ = [
     "choose_block_align",
     "AlignEstimate",
     "fac_block_stats",
-    "materialize_on_device",
 ]
-
-
-def materialize_on_device(plan: StagePlan, chunk: int = 256):
-    """Dense DEVICE materialization of a packed plan: apply it to identity
-    column blocks built on-chip and keep the result on-chip. Feeds the
-    device distillation (fac/distill.py distill_butterfly_device) without a
-    single host round trip — on hosts behind a slow transfer link, pulling
-    an (n, m) dense matrix to the host costs orders of magnitude more than
-    re-deriving it on the chip. For a real-embedded complex plan the result
-    is the (2n, 2m) STACKED [Re; Im] real matrix (StagePlan's convention).
-    """
-    import jax
-    import jax.numpy as jnp
-
-    mul = 2 if plan.real_embed else 1
-    n, m = plan.shape[0] * mul, plan.shape[1] * mul
-    fn = plan._apply_jit
-    w = min(chunk, m)
-
-    @jax.jit
-    def step(params, j0):
-        # identity chunk built on-chip with a TRACED offset so every chunk
-        # reuses one executable (a static offset would recompile per chunk)
-        E = (jnp.arange(m)[:, None]
-             == j0 + jnp.arange(w)[None, :]).astype(jnp.float32)
-        return fn(params, E)
-
-    outs = [step(plan._params, jnp.int32(j0)) for j0 in range(0, m, w)]
-    M = jnp.concatenate(outs, axis=1)
-    return M[:, :m]
 
 
 def _as_linop(obj) -> LinOp:
@@ -166,11 +136,11 @@ def choose_block_align(
 ) -> tuple[int, list[AlignEstimate]]:
     """Pick the bucket tile size minimizing estimated apply cost.
 
-    Cost model: padded flops (MXU work incl. waste) + a fixed per-bucket
+    Cost model: padded flops (matmul work incl. waste) + a fixed per-bucket
     dispatch overhead (each bucket is one gather + one batched GEMM + one
-    scatter; measured on TPU these carry a fixed cost comparable to ~4 MFLOP
-    of MXU work). Small aligns waste little padding but explode the bucket
-    count; 128 matches the MXU tile but can pad ragged ranks >2x. This makes
+    scatter, modelled as ~4 MFLOP of matmul work; not measured on the
+    H100). Small aligns waste little padding but explode the bucket count;
+    128 matches a large matmul tile but can pad ragged ranks >2x. This makes
     SURVEY.md §7's "central trade" an explicit, recorded decision.
     """
     shapes = _unit_shapes(_as_linop(obj))
@@ -185,40 +155,40 @@ def choose_block_align(
 
 
 class FusedFacPlan:
-    """A REAL factorized operator re-compressed to FFT form and compiled
-    through the fused Pallas butterfly kernel (ops/pallas_butterfly.py).
+    """A REAL factorized operator re-compressed to uniform FFT form
+    (fac/distill.py) and applied as one batched einsum per level
+    (`UniformButterfly.apply`), jitted once.
 
     This is the fast path for the reference's metric-critical product apply
     (src/fac.c:133-146): instead of one batched einsum per ragged stage
-    (StagePlan), the whole operator runs as O(1) fused VMEM-resident passes.
-    Rows come out in butterfly (bit-reversed-block) order; apply() restores
-    canonical order with one device gather, apply_butterfly_order() skips it
+    (StagePlan), every level is a single uniform batched GEMM. Rows come out
+    in butterfly (bit-reversed-block) order; apply() restores canonical
+    order with one device gather, apply_butterfly_order() skips it
     (order-free consumers: norms, top-k after id-mapping, chained scoring).
     """
 
-    def __init__(self, dist, fuse: int = 8, r_tile: int = 256,
-                 act_dtype=None, interpret: bool | None = None):
+    def __init__(self, dist):
+        import jax
         import jax.numpy as jnp
 
-        from butterfly_tpu.ops.pallas_butterfly import FusedButterflyPlan
+        from butterfly_tpu.ops.butterfly import UniformButterfly
 
         self.dist = dist
-        self.plan = FusedButterflyPlan(dist.bf, fuse=fuse, r_tile=r_tile,
-                                       act_dtype=act_dtype,
-                                       interpret=interpret)
+        self.bf = bf = dist.bf
+        self._apply_jit = jax.jit(UniformButterfly.apply)
         inv = np.empty_like(dist.row_perm)
         inv[dist.row_perm] = np.arange(dist.row_perm.size)
         self._inv_perm = jnp.asarray(inv.astype(np.int32))
-        self.shape = dist.bf.shape
+        self.shape = bf.shape
         self.rank = dist.rank
 
     def apply_butterfly_order(self, x):
-        return self.plan.apply(x)
+        return self._apply_jit(self.bf, x)
 
     def apply(self, x):
         import jax.numpy as jnp
 
-        return jnp.take(self.plan.apply(x), self._inv_perm, axis=0)
+        return jnp.take(self.apply_butterfly_order(x), self._inv_perm, axis=0)
 
     def __call__(self, x):
         return self.apply(x)
@@ -227,10 +197,10 @@ class FusedFacPlan:
         return self.apply(X)
 
     def flops_per_col(self) -> int:
-        return self.dist.bf.flops_per_col()
+        return self.bf.flops_per_col()
 
     def nbytes(self) -> int:
-        return self.plan.nbytes()
+        return self.bf.nbytes()
 
 
 def uniformize_fused(
@@ -239,19 +209,15 @@ def uniformize_fused(
     rank: int | None = None,
     tol: float = 1e-6,
     dtype=np.float32,
-    fuse: int = 8,
-    r_tile: int = 256,
-    act_dtype=None,
-    interpret: bool | None = None,
 ) -> FusedFacPlan:
     """Re-compress a real factorized operator into uniform FFT form
-    (fac/distill.py) and compile the fused Pallas apply.
+    (fac/distill.py) and compile its per-level einsum apply.
 
     The ragged->uniform trade: `uniformize` (the packed path) keeps the
     fac's exact ragged ranks and pays per-stage dispatch; this path pays a
-    one-time re-compression (setup, host f64) and applies at the flagship
-    kernel's speed. num_blocks=None picks the largest power of two keeping
-    >=32 columns per leaf block.
+    one-time re-compression (setup, host f64) and applies as one uniform
+    batched GEMM per level. num_blocks=None picks the largest power of two
+    keeping >=32 columns per leaf block.
     """
     from butterfly_tpu.fac.distill import distill_butterfly
 
@@ -273,15 +239,14 @@ def uniformize_fused(
         "uniformize_fused: NB=%d rank=%d dropped=%.2e nbytes=%.1f MB",
         num_blocks, dist.rank, dist.max_sv_discarded, dist.nbytes() / 1e6,
     )
-    return FusedFacPlan(dist, fuse=fuse, r_tile=r_tile,
-                        act_dtype=act_dtype, interpret=interpret)
+    return FusedFacPlan(dist)
 
 
 def uniformize(
     obj,
     dtype=None,
     block_align: int | None = None,
-    real_embed: bool | None = None,
+    real_embed: bool = False,
     precision: str | None = "highest",
     tiling: str = "uniform",
 ) -> StagePlan:

@@ -1,4 +1,4 @@
-"""Batched ray-traced visibility on triangle meshes (TPU-native Embree
+"""Batched ray-traced visibility on triangle meshes (device-native Embree
 replacement).
 
 The reference gates its radiosity view-factor assembly on Embree 4 ray
@@ -14,7 +14,7 @@ Two regimes:
 - `ray_hits_any`: brute-force tiles. For small meshes the dense tile is
   bandwidth-cheap (every operand is reused across a full tile) and beats
   irregular tree traversal.
-- `CulledVisibility`: the Embree-BVH analogue, TPU style. Triangles are
+- `CulledVisibility`: the Embree-BVH analogue, batched-device style. Triangles are
   grouped into octree-leaf AABBs host-side; a vectorized segment-vs-AABB
   slab test (NumPy, O(rays x groups)) prunes which (ray-bucket x tri-group)
   dense tiles run on device, and rays already known occluded are dropped

@@ -92,7 +92,7 @@ def compress_lbo_eigenfunctions(
       "device" — device-resident bands (ops/device_eigs.DeviceEigSession):
                  dense generalized eigh on device for small meshes,
                  constrained generalized LOBPCG (no inner solves) at scale —
-                 the TPU-native analogue SURVEY.md §7.5 plans.
+                 the device analogue SURVEY.md §7.5 plans.
     """
     L, M = mesh.lbo_fem()
     n = mesh.num_verts

@@ -6,7 +6,7 @@ visibility (examples/radiosity/radiosity.c:22,
 bfMatCsrRealNewViewFactorMatrixFromTrimesh src/mat_csr_real.c:407-440,
 integrateViewFactorMidpointRule src/mat_csr_real.c:387-405).
 
-TPU redesign: the view-factor kernel F_ij is evaluated for a whole (rows x
+Device redesign: the view-factor kernel F_ij is evaluated for a whole (rows x
 cols) tile at once as fused jnp broadcasting (one VPU pass), visibility is
 the batched Möller–Trumbore tile of geom/visibility.py, and the result is
 returned either dense-on-device (for butterfly compression / scoring) or as

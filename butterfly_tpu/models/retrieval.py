@@ -15,7 +15,7 @@ deep format runs the full streaming factorizer + fac->device bridge. Which
 one wins is a measured property of the table's aspect/structure — see
 DeepTable's docstring. The reference's analogue is the algebraic fac engine
 compressing row blocks by truncated SVD (getPsiAndW, src/fac.c:717-777);
-here one-level blocks are uniform so every operation is ONE batched MXU
+here one-level blocks are uniform so every operation is ONE batched
 einsum:
 
 - `score(queries)`: scores = Psi @ (V @ q) — batched block GEMMs.
@@ -97,7 +97,7 @@ class CompressedTable:
     def score(self, queries: jnp.ndarray) -> jnp.ndarray:
         """Scores of every row against every query: (n, q).
 
-        queries: (q, d). Two batched einsums; both ride the MXU.
+        queries: (q, d). Two batched einsums.
         """
         mid = jnp.einsum("brd,qd->brq", self.V, queries.astype(self.V.dtype),
                          preferred_element_type=jnp.float32)
@@ -119,11 +119,11 @@ class CompressedTable:
 
     def topk(self, queries: jnp.ndarray, k: int, approx: bool = False):
         """(values, indices) of the top-k rows per query: (q, k) each.
-        approx=True uses the TPU's approx_max_k (recall ~0.95 per the XLA
-        contract, much faster than exact sort at large n); strict recall
-        reported by callers measures the end-to-end effect honestly."""
+        approx=True uses lax.approx_max_k (recall ~0.95 per the XLA
+        contract); strict recall reported by callers measures the
+        end-to-end effect."""
         scores = self.score(queries)  # (n, q)
-        if approx and jax.default_backend() == "tpu":
+        if approx:
             return jax.lax.approx_max_k(scores.T, k)
         return jax.lax.top_k(scores.T, k)
 
@@ -142,7 +142,7 @@ def compress_table(
     svd_dtype=np.float64,
 ) -> CompressedTable:
     """Compress a dense (n, d) table by per-row-block truncated SVD with a
-    UNIFORM rank (the MXU-friendly analogue of the reference's tol-adaptive
+    UNIFORM rank (the batched-GEMM-friendly analogue of the reference's tol-adaptive
     getPsiAndW truncation, src/fac.c:680-714; uniformity is the
     padding/bucketing decision SURVEY.md §7 calls the central trade).
 
@@ -257,7 +257,7 @@ class DeepTable:
 
     def topk(self, queries, k: int, approx: bool = False):
         scores = self.score(queries)
-        if approx and jax.default_backend() == "tpu":
+        if approx:
             return jax.lax.approx_max_k(scores.T, k)
         return jax.lax.top_k(scores.T, k)
 

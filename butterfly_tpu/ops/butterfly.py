@@ -1,8 +1,8 @@
-"""UniformButterfly: the flagship TPU-native butterfly apply format.
+"""UniformButterfly: the flagship butterfly apply format.
 
 The reference applies butterflies by walking a recursive object graph of
 block matrices, one small zgemv per block (src/mat_block_dense.c:574-630,
-src/fac.c:133-146). The TPU redesign stores each level in "FFT form" and
+src/fac.c:133-146). This redesign stores each level in "FFT form" and
 applies it as ONE multi-batch-dimension `dot_general` with NO gathers,
 scatters, or transposes:
 
@@ -15,9 +15,8 @@ scatters, or transposes:
 Block i mixes with blocks differing in base-R digit l of the block index —
 exactly the butterfly sparsity pattern of the reference's MatBlockCoo factors
 (src/fac_helm2.c:309-312), but the inter-level "re-blocking" permutation is
-absorbed into einsum batch dimensions, so XLA emits pure MXU work. Measured
-on TPU v5e this runs ~20x faster than a gather/scatter formulation of the
-same chain and saturates the HBM-bandwidth roofline.
+absorbed into einsum batch dimensions, so XLA emits one batched GEMM per
+level and nothing else.
 
 The structure is a registered pytree: factors are differentiable leaves, so a
 butterfly can be fine-tuned end-to-end with jax.grad (used by the retrieval
@@ -36,7 +35,32 @@ import numpy as np
 from butterfly_tpu.ops import linop as L
 from butterfly_tpu.utils.errors import InvalidArgumentsError, check
 
-__all__ = ["UniformButterfly", "random_butterfly"]
+__all__ = ["UniformButterfly", "apply_factor", "random_butterfly",
+           "reference_apply"]
+
+
+def apply_factor(W, x, radix: int = 2, precision=None, act_dtype=None):
+    """One butterfly factor on x (n, r) -> (n_out, r): the block-diagonal
+    leaf (W of shape (NB, m, k)) or one FFT-form level (W of shape
+    (hi, R, R, lo, m, k)), as one einsum. Both shapes are read off W, so
+    the same call serves a shard's local blocks. bf16/f16 products
+    accumulate in f32, wider types in their own; `act_dtype` (None: keep
+    the product's type) is the dtype the result is stored in."""
+    r = x.shape[1]
+    acc = jnp.promote_types(W.dtype, jnp.float32)
+    if W.ndim == 3:
+        NB, m, k = W.shape
+        y = jnp.einsum("bmk,bkr->bmr", W,
+                       x.reshape(NB, k, r).astype(W.dtype),
+                       preferred_element_type=acc, precision=precision)
+    else:
+        hi, _, _, lo, m, k = W.shape
+        y = jnp.einsum("hcdlmk,hdlkr->hclmr", W,
+                       x.reshape(hi, radix, lo, k, r).astype(W.dtype),
+                       preferred_element_type=acc, precision=precision)
+    if act_dtype is not None:
+        y = y.astype(act_dtype)
+    return y.reshape(-1, r)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -51,15 +75,20 @@ class UniformButterfly:
     """
 
     def __init__(self, leaf, levels: Sequence, radix: int = 2,
-                 precision=None):
+                 precision=None, act_dtype=None):
         # precision: lax dot precision for apply ("highest"/"high"/None).
-        # TPU demotes f32 dots to one bf16 MXU pass by DEFAULT (~1e-3 rel
-        # err); accuracy-gated f32 operators (e.g. distilled real facs
-        # meeting the BASELINE <=1e-6 clause) must carry "highest".
+        # A default-precision f32 product may run in TF32 (~1e-3 rel err);
+        # accuracy-gated f32 operators (e.g. distilled real facs meeting
+        # the BASELINE <=1e-6 clause) must carry "highest".
+        # act_dtype: dtype the activations are stored in between levels
+        # (None: the product's own f32/f64/complex type). bfloat16 halves
+        # the activation traffic of a bandwidth-bound chain; every level
+        # still accumulates in f32.
         self.leaf = leaf
         self.levels = list(levels)
         self.radix = radix
         self.precision = precision
+        self.act_dtype = None if act_dtype is None else jnp.dtype(act_dtype)
         if leaf is not None:
             self.NB = leaf.shape[0]
             k_in = leaf.shape[2]
@@ -84,12 +113,14 @@ class UniformButterfly:
     # -- pytree protocol (factors are differentiable leaves) -------------
 
     def tree_flatten(self):
-        return (self.leaf, self.levels), (self.radix, self.precision)
+        return (self.leaf, self.levels), (self.radix, self.precision,
+                                          self.act_dtype)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         leaf, levels = children
-        return cls(leaf, levels, radix=aux[0], precision=aux[1])
+        return cls(leaf, levels, radix=aux[0], precision=aux[1],
+                   act_dtype=aux[2])
 
     # -- apply -----------------------------------------------------------
 
@@ -99,28 +130,10 @@ class UniformButterfly:
         was_vec = x.ndim == 1
         if was_vec:
             x = x[:, None]
-        r = x.shape[1]
-        cur = x.reshape(self.NB, self.k_in, r)
-        if self.leaf is not None:
-            cur = jnp.einsum(
-                "bmk,bkr->bmr", self.leaf, cur.astype(self.leaf.dtype),
-                preferred_element_type=cur.dtype if cur.dtype in (jnp.float32, jnp.float64, jnp.complex64, jnp.complex128) else jnp.float32,
-                precision=self.precision,
-            )
-        R = self.radix
-        for l, W in enumerate(self.levels):
-            hi, _, _, lo, m, k = W.shape
-            c5 = cur.reshape(hi, R, lo, k, r)
-            y = jnp.einsum(
-                "hcdlmk,hdlkr->hclmr", W, c5.astype(W.dtype),
-                preferred_element_type=jnp.float32
-                if W.dtype == jnp.bfloat16
-                else W.dtype,
-                precision=self.precision,
-            )
-            cur = y.reshape(self.NB, m, r)
-        out = cur.reshape(self.NB * self.m_out, r)
-        return out[:, 0] if was_vec else out
+        factors = ([] if self.leaf is None else [self.leaf]) + self.levels
+        for W in factors:
+            x = apply_factor(W, x, self.radix, self.precision, self.act_dtype)
+        return x[:, 0] if was_vec else x
 
     def __call__(self, x):
         return self.apply(x)
@@ -154,7 +167,7 @@ class UniformButterfly:
         leaf = None if self.leaf is None else self.leaf.astype(dtype)
         return UniformButterfly(
             leaf, [W.astype(dtype) for W in self.levels], self.radix,
-            precision=self.precision,
+            precision=self.precision, act_dtype=self.act_dtype,
         )
 
     # -- oracle conversion ----------------------------------------------
@@ -223,3 +236,27 @@ def random_butterfly(
         ) / np.sqrt(radix * block)
         levels.append(W.astype(dtype))
     return UniformButterfly(leaf, levels, radix)
+
+
+def reference_apply(bf: UniformButterfly, X) -> np.ndarray:
+    """Plain float64 (complex128 for complex weights) NumPy level-by-level
+    apply of `bf` to X (n, r): the oracle for the device apply at sizes
+    where the dense operator does not fit."""
+    R = bf.radix
+    r = X.shape[1]
+    dt = np.result_type(np.asarray(X).dtype, np.float64,
+                        *[np.dtype(W.dtype) if W.dtype != jnp.bfloat16
+                          else np.float32 for W in bf.levels])
+    cur = np.asarray(X, dt).reshape(bf.NB, bf.k_in, r)
+    if bf.leaf is not None:
+        cur = np.matmul(np.asarray(bf.leaf).astype(dt), cur)
+    for W in bf.levels:
+        W = np.asarray(W).astype(dt)
+        hi, _, _, lo, m, k = W.shape
+        # y[h,c,l] = sum_d W[h,c,d,l] @ x[h,d,l] as one batched matmul
+        Wb = W.transpose(0, 3, 1, 4, 2, 5).reshape(hi * lo, R * m, R * k)
+        xb = cur.reshape(hi, R, lo, k, r).transpose(0, 2, 1, 3, 4)
+        y = np.matmul(Wb, xb.reshape(hi * lo, R * k, r))
+        cur = y.reshape(hi, lo, R, m, r).transpose(0, 2, 1, 3, 4)
+        cur = cur.reshape(bf.NB, m, r)
+    return cur.reshape(-1, r)

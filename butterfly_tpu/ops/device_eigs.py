@@ -2,7 +2,7 @@
 
 The reference computes eigenbands with ARPACK shift-invert Lanczos, each
 iteration an UMFPACK sparse solve on the host (src/linalg.c:472-1000).
-SURVEY.md §2.3/§7.5 plans the TPU-native analogue: eigenbands produced on
+SURVEY.md §2.3/§7.5 plans the device analogue: eigenbands produced on
 the device and fed straight to the streaming factorizer without host
 round-trips. This module provides it in two regimes:
 
@@ -23,7 +23,7 @@ round-trips. This module provides it in two regimes:
 `next_band(lo, hi) -> (vals, vecs)` used by models/lbo.py.
 
 Precision note: on the CPU backend (tests, x64 enabled) results match scipy
-to ~1e-10. The TPU backend computes in f32 — fine for f32-tolerance
+to ~1e-10. The device computes in f32 — fine for f32-tolerance
 factorizations; keep the host scipy path for f64-certified setups.
 """
 
@@ -126,7 +126,7 @@ def lobpcg_generalized(
     dense). X0 (n, m) initial block (device array). Y: (n, p) converged
     eigenvectors to deflate (M-orthonormal); the iteration keeps every basis
     vector M-orthogonal to span(Y), so the returned pairs are the next m up
-    the spectrum. No inner solves anywhere — the TPU-native trade vs the
+    the spectrum. No inner solves anywhere — the device-native trade vs the
     reference's ARPACK+UMFPACK shift-invert (src/linalg.c:522-586).
 
     Returns (vals (m,), vecs (n, m), res (m,)) as host numpy, ascending.

@@ -6,7 +6,7 @@ tables include/bf/layer_pot.h:44-72). Everything is vectorized matrix
 assembly — no per-entry loops: pairwise distances + Hankel evaluations over
 whole blocks. A host (NumPy+scipy) path serves factorization and oracle
 tests; a jnp path (using ops/special.py) lets the same kernels be evaluated
-inside jit on TPU.
+inside jit on the device.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ Replacement for the reference's L3 layer (src/linalg.c):
 
 The eigensolvers run at setup time on the host and use scipy's
 Lanczos/shift-invert (scipy *is* ARPACK + sparse LU, i.e. the same numerics
-the reference reaches through C bindings); the apply-time hot path on TPU
+the reference reaches through C bindings); the apply-time hot path on the device
 never calls them. SURVEY.md §2.3 explicitly sanctions host-side solves for
 setup-time work.
 """
@@ -208,14 +208,17 @@ def solve_gmres_device(
     Givens recurrence, back substitution) lives in one jitted
     lax.while_loop — matvecs never leave the chip.
 
-    Real dtypes only (this TPU backend has no complex; run Helmholtz
-    through the 2x2 real-embedded stacked system, e.g.
-    `StagePlan.apply_stacked`). matvec/M: jittable (n, k) -> (n, k)
-    callables or arrays. Returns (x, total_iters, rel_res) as jax arrays.
+    Real dtypes only (run Helmholtz through the 2x2 real-embedded stacked
+    system, e.g. `StagePlan.apply_stacked`). matvec/M: jittable
+    (n, k) -> (n, k) callables or arrays. Returns (x, total_iters, rel_res)
+    as jax arrays. The Gram-Schmidt products run at HIGHEST precision: a
+    default-precision f32 product may run in TF32, whose ~1e-3 error would
+    floor the basis orthogonality far above a 1e-6 residual target.
     """
     import jax
     import jax.numpy as jnp
 
+    hp = jax.lax.Precision.HIGHEST
     apply_a = matvec if callable(matvec) else (lambda V: matvec @ V)
     apply_m = (M if callable(M) else (lambda V: M @ V)) if M is not None \
         else (lambda V: V)
@@ -243,10 +246,11 @@ def solve_gmres_device(
             # the batched, fixed-shape form (MGS needs a sequential scan;
             # CGS2 has equivalent stability and is one matmul)
             mask = (jnp.arange(m + 1) <= j)[:, None, None]
-            proj = jnp.einsum("ink,nk->ik", jnp.where(mask, V, 0.0), W)
-            W = W - jnp.einsum("ink,ik->nk", jnp.where(mask, V, 0.0), proj)
-            proj2 = jnp.einsum("ink,nk->ik", jnp.where(mask, V, 0.0), W)
-            W = W - jnp.einsum("ink,ik->nk", jnp.where(mask, V, 0.0), proj2)
+            Vm = jnp.where(mask, V, 0.0)
+            proj = jnp.einsum("ink,nk->ik", Vm, W, precision=hp)
+            W = W - jnp.einsum("ink,ik->nk", Vm, proj, precision=hp)
+            proj2 = jnp.einsum("ink,nk->ik", Vm, W, precision=hp)
+            W = W - jnp.einsum("ink,ik->nk", Vm, proj2, precision=hp)
             hcol = proj + proj2  # (m+1, k)
             h = jnp.linalg.norm(W, axis=0)
             V = V.at[j + 1].set(jnp.where(h > 0, W / jnp.where(h > 0, h, 1.0), 0.0))
@@ -284,7 +288,7 @@ def solve_gmres_device(
             return y.at[i].set(num / jnp.where(jnp.abs(hii) > 0, hii, 1.0))
 
         y = jax.lax.fori_loop(0, m, back, jnp.zeros((m, k), B.dtype))
-        Xn = X + jnp.einsum("mnk,mk->nk", V[:m], y)
+        Xn = X + jnp.einsum("mnk,mk->nk", V[:m], y, precision=hp)
         res = jnp.abs(g[m]) / jnp.where(
             jnp.linalg.norm(B, axis=0) > 0, jnp.linalg.norm(B, axis=0), 1.0
         )
@@ -326,14 +330,14 @@ def solve_gmres_plan(
     Unlike `solve_gmres_device` (whole loop in one lax.while_loop), the
     operator here may be ANY Python-level device callable — in particular a
     PartitionPlan.apply_device composed of several executables (its
-    oversized-block stage plans cannot nest inside one jit on this box).
-    This is what makes large-N Helmholtz solves wall-clock ~= iters x
-    apply time instead of host-GMRES's per-iteration host round trips
-    (VERDICT r4: 968 s for 23 iterations on an 83 ms apply).
+    oversized-block stage plans are separate jits). Large-N Helmholtz
+    solves then cost ~ iters x apply time instead of host-GMRES's
+    per-iteration host round trips.
 
     Real dtypes only — run complex systems through the interleaved real
     embedding. f32 basis: attainable relative residual floors around
     1e-6..1e-7; `tol` below that will run to max_iter and report the floor.
+    Orthogonalization runs at HIGHEST precision (TF32 would floor it).
     """
     import jax
     import jax.numpy as jnp
@@ -352,8 +356,9 @@ def solve_gmres_plan(
     def _start(V, r, rnorm):
         return V.at[0].set(r / jnp.where(rnorm > 0, rnorm, 1.0))
 
-    # eager jnp ops cost ~100 ms each on this box; keep ALL per-iteration
-    # glue inside jitted helpers
+    # keep ALL per-iteration glue inside jitted helpers (one dispatch each)
+    hp = jax.lax.Precision.HIGHEST
+
     @jax.jit
     def _row(V, j):
         return V[j]
@@ -367,10 +372,10 @@ def solve_gmres_plan(
         """CGS2 against V[0..j]; returns (V with V[j+1] set, hcol, hlast)."""
         mask = (jnp.arange(m + 1) <= j)[:, None]
         Vm = jnp.where(mask, V, 0.0)
-        h1 = Vm @ w
-        w = w - Vm.T @ h1
-        h2 = Vm @ w
-        w = w - Vm.T @ h2
+        h1 = jnp.dot(Vm, w, precision=hp)
+        w = w - jnp.dot(Vm.T, h1, precision=hp)
+        h2 = jnp.dot(Vm, w, precision=hp)
+        w = w - jnp.dot(Vm.T, h2, precision=hp)
         h = h1 + h2
         beta = jnp.linalg.norm(w)
         V = V.at[j + 1].set(w / jnp.where(beta > 0, beta, 1.0))
@@ -378,7 +383,7 @@ def solve_gmres_plan(
 
     @jax.jit
     def _update(x, V, y):
-        return x + V[:m].T @ jnp.asarray(y, V.dtype)
+        return x + jnp.dot(V[:m].T, jnp.asarray(y, V.dtype), precision=hp)
 
     x = jnp.zeros_like(b)
     bnorm = float(_norm(b))
@@ -387,14 +392,20 @@ def solve_gmres_plan(
 
     residuals: list[float] = []
     total = 0
-    converged = False
-    while total < max_iter and not converged:
+    prev = np.inf
+    claimed = False  # the last cycle's Givens estimate met tol
+    while True:
+        # restart on the TRUE residual: the Givens estimate drifts below it
+        # at the f32 floor. After a cycle whose estimate met tol, another
+        # starts only while it still halves the true residual.
         r = _resid(b, jnp.asarray(apply_fn(x)))
         rnorm = float(_norm(r))
-        residuals.append(rnorm / bnorm)
-        if rnorm / bnorm < tol:
-            converged = True
+        final = rnorm / bnorm
+        residuals.append(final)
+        if (final < tol or total >= max_iter
+                or (claimed and final > 0.5 * prev)):
             break
+        prev, claimed = final, False
         V = jnp.zeros((m + 1, n), b.dtype)
         V = _start(V, r, rnorm)
         # host-side f64 Givens recurrence state
@@ -431,7 +442,7 @@ def solve_gmres_plan(
             res = abs(g[j + 1]) / bnorm
             residuals.append(res)
             if res < tol:
-                converged = True
+                claimed = True
                 break
         if j_used:
             y = np.zeros(m)
@@ -439,10 +450,6 @@ def solve_gmres_plan(
                 y[i] = (g[i] - Hr[i, i + 1:j_used] @ y[i + 1:j_used]) / (
                     Hr[i, i] if Hr[i, i] != 0 else 1.0)
             x = _update(x, V, y)
-    # true residual check (the Givens estimate drifts at the f32 floor)
-    r = _resid(b, jnp.asarray(apply_fn(x)))
-    final = float(_norm(r)) / bnorm
-    residuals.append(final)
     log_info("gmres_plan: %d iters, rel res %.3e (givens est %.3e)",
              total, final, residuals[-2] if len(residuals) > 1 else 0.0)
     return GmresResult(np.asarray(x), total, residuals,

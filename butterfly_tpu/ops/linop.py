@@ -1,6 +1,6 @@
 """Host-side structured linear-operator algebra (the oracle layer).
 
-TPU-native redesign of the reference's recursive `BfMat` runtime
+JAX redesign of the reference's recursive `BfMat` runtime
 (include/bf/mat.h:112-196 and the ~20 concrete types under src/mat_*.c).
 Instead of a vtable object system with 68 virtual methods, we keep a small
 compositional algebra of immutable operator nodes with NumPy semantics:
@@ -23,9 +23,9 @@ This layer runs on the host in float64/complex128 and is used for
 (b) as the dense ground truth every compressed operator is tested against —
 the reference's own strongest validation pattern (SURVEY.md §4).
 
-The TPU hot path does NOT interpret this recursive structure: `ops/packed.py`
+The device hot path does NOT interpret this recursive structure: `ops/packed.py`
 flattens any LinOp tree into level-synchronous batched block-GEMM stages that
-run on the MXU. That split (recursive host algebra + flat device plan) is the
+run on the device. That split (recursive host algebra + flat device plan) is the
 core architectural difference from the reference, whose apply path walks the
 object graph per matvec (src/mat_block_dense.c:574-630).
 """

@@ -1,6 +1,6 @@
 """The packed device runtime: LinOp trees -> level-synchronous batched GEMMs.
 
-This is the TPU replacement for the reference's interpreted apply path, where
+This is the device replacement for the reference's interpreted apply path, where
 every matvec walks a recursive object graph making one tiny BLAS call per
 block (reference: bfMatBlockDenseMulVec src/mat_block_dense.c:574-630,
 MatProduct apply src/fac.c:133-146 — SURVEY.md §3.2 identifies this stack as
@@ -14,7 +14,7 @@ a `StagePlan`:
 - units are scheduled into *stages* (factor k of a Product chain runs at
   stage k; different chains of a multilevel factorization overlap stages);
 - within a (stage, output-buffer) group, units are *bucketed* by padded block
-  shape: one bucket = one batched (B, m, k) x (B, k, r) einsum on the MXU;
+  shape: one bucket = one batched (B, m, k) x (B, k, r) einsum;
 - the inter-level butterfly re-blocking is carried entirely by the gather /
   scatter index tables — XLA sees static indices and fuses the gathers into
   the GEMMs.
@@ -211,29 +211,27 @@ def _round_up(x: int, align: int) -> int:
 # Shape-bucketing alone leaves real factorizations dispatch-bound: the
 # multilevel Helmholtz plan measured 43 buckets over 5 stages and ran at 3%
 # of its own speed of light — each bucket is one einsum whose fixed issue
-# cost (~2-4 us on TPU) dwarfs its tiny MXU work. Tiling instead SPLITS every
+# cost (a few us) dwarfs its tiny matmul work. Tiling instead SPLITS every
 # dense block of a (stage, write-buffer) group onto one (or two) uniform tile
 # shapes: edge tiles are zero-padded, k-direction splits accumulate through
 # the executor's take-sum tables, m-direction splits just read their input
 # window twice. One bucket then equals one batched einsum per stage.
 
 # Fixed per-bucket issue cost, expressed in per-column flops at a nominal
-# r=256 column count: measured ~3 us/bucket dispatch on TPU v5e at the f32
-# peak (~170 TFLOP/s) => 3e-6 * 170e12 / 256 ~= 2e6 padded flops per column.
-# (Round 2's 4-MFLOP guess was calibrated at r=256 too but bench E ran r=64,
-# understating overhead 4x; the bench now measures r>=256.)
+# r=256 column count: ~2e6 padded flops per column (a few us of dispatch at
+# a large matmul rate). A model constant, not measured on the H100.
 _BUCKET_OVERHEAD_FLOPS = 1 << 21
 
 
 def _eff_dim(x: int, gran: int) -> int:
-    """Effective MXU-occupied size of a dim (Mosaic pads tiles to hardware
-    granularity: 8 sublanes x 128 lanes for f32)."""
+    """Effective matmul-occupied size of a dim (matmul units pad tiles to
+    a hardware granularity)."""
     return max(gran, _round_up(x, gran))
 
 
 def _tile_cost(dims: "list[tuple[int, int]]", tm: int, tk: int) -> int:
     """Modeled per-column flops of one bucket holding `dims` split on a
-    (tm, tk) tile, with MXU granularity applied to the tile itself."""
+    (tm, tk) tile, with matmul granularity applied to the tile itself."""
     tme, tke = _eff_dim(tm, 8), _eff_dim(tk, 128)
     return sum(
         2 * -(-m // tm) * tme * -(-k // tk) * tke for m, k in dims
@@ -340,36 +338,32 @@ class StagePlan:
     `real_embed`: map a complex operator onto REAL buffers via the standard
     2x2 embedding — every buffer of size S becomes [Re; Im] of size 2S and a
     complex block Z = A + iB becomes four real GEMM units (A, -B, B, A) wired
-    between the halves. Complex matmul is UNIMPLEMENTED on the TPU backend
-    (measured: c64 einsum -> "TPU backend error (Unimplemented)"), so this is
-    how the Helmholtz apply (the reference's zgemv hot loop,
-    src/mat_dense_complex.c:1072) rides the MXU. Flop accounting stays exact:
-    4 real (m, k) units = 8mk flops = one complex madd's true cost.
-    Default: auto (embed iff the op is complex and the backend is TPU).
+    between the halves. Callers that feed real-only consumers (the partition
+    apply's interleaved layout, the real GMRES drivers) ask for it; by
+    default a complex operator keeps native complex buffers. Flop accounting
+    stays exact: 4 real (m, k) units = 8mk flops = one complex madd's cost.
     """
 
     def __init__(self, op: L.LinOp, dtype=None, block_align: int = 128,
-                 real_embed: bool | None = None,
+                 real_embed: bool = False,
                  precision: str | None = "highest",
                  tiling: str = "uniform",
                  params_on_host: bool = False):
         # params_on_host: keep weights + index tables as HOST numpy arrays.
-        # Each jitted apply then streams them H2D per call (they are jit
-        # ARGUMENTS, so no retrace) and XLA frees the transfer buffers when
-        # the call's consumers finish — resident HBM cost is ~one plan's
-        # weights at a time instead of all plans at once. Used by the
-        # partition apply's oversized-block sub-plans at 65k+ points, whose
-        # combined weights (~3 GB) plus the resident cell weights (9.6 GB)
-        # exhausted a 16 GB v5e. H2D on this box moves ~1.5 GB/s, so a
-        # streamed mega costs ~12 ms/apply per 18 MB plan.
+        # Each jitted apply then streams them host-to-device per call (they
+        # are jit ARGUMENTS, so no retrace) and XLA frees the transfer
+        # buffers when the call's consumers finish — resident device memory
+        # is ~one plan's weights at a time instead of all plans at once.
+        # Used by the partition apply's oversized-block sub-plans when the
+        # resident cell weights leave too little device memory.
         self._params_on_host = bool(params_on_host)
         _dev = (np.asarray if params_on_host else jnp.asarray)
         m, n = op.shape
         # Packed plans serve the ACCURACY-critical factorized-operator path
-        # (the throughput flagship is the uniform butterfly kernel), and they
-        # are overhead/bandwidth-bound, so full-f32 MXU passes are close to
-        # free: default to HIGHEST so the device apply holds the reference's
-        # rel-err budget (TPU default matmul precision is bf16-grade).
+        # and are overhead/bandwidth-bound, so full-f32 products are close
+        # to free: default to HIGHEST so the device apply holds the
+        # reference's rel-err budget (a default-precision f32 product may
+        # run in TF32, ~3 decimal digits).
         self._precision = (
             None if precision is None else jax.lax.Precision(precision)
         )
@@ -378,11 +372,6 @@ class StagePlan:
         if dtype is None:
             dtype = jnp.complex64 if op_complex else jnp.float32
         dtype = jnp.dtype(dtype)
-        if real_embed is None:
-            real_embed = (
-                np.issubdtype(dtype, np.complexfloating)
-                and jax.default_backend() == "tpu"
-            )
         self.real_embed = bool(real_embed) and np.issubdtype(
             dtype, np.complexfloating
         )
@@ -562,8 +551,8 @@ class StagePlan:
         # with a precomputed (rows, c_max) table into the previous stage's
         # concatenated outputs, followed by a length-c_max dense sum for rows
         # with multiple contributors. No scatter anywhere.
-        # CRITICAL TPU detail: weights and index tables are passed as jit
-        # ARGUMENTS, never closure constants — XLA:TPU compiles embedded
+        # Weights and index tables are passed as jit ARGUMENTS, never
+        # closure constants — XLA can compile embedded
         # constant gathers to a pathological path ~400x slower (measured).
 
         # read_coords[t]: logical coordinate each unrolled activation row of
@@ -722,7 +711,7 @@ class StagePlan:
     def __call__(self, x):
         """Apply to (n,) or (n, r); jit-compiled, cached per input shape."""
         if self.real_embed:
-            # complex in/out lives on the host (the TPU backend has no
+            # complex in/out lives on the host (the embedded plan has no
             # complex dtypes at all); the device sees stacked [Re; Im].
             x = np.asarray(x)
             was_vec = x.ndim == 1
@@ -816,10 +805,10 @@ def _apply_plan(meta: _PlanMeta, params, x: jnp.ndarray) -> jnp.ndarray:
 
     Activations live UNROLLED per stage: every GEMM unit's padded input
     window is a contiguous slice, so bucket reads are free, each bucket is
-    one batched MXU einsum, and the entire inter-stage re-blocking (the
+    one batched einsum, and the entire inter-stage re-blocking (the
     butterfly exchange) is ONE precomputed take (+ a length-c_max dense sum
     where block rows genuinely accumulate, e.g. radix-2 butterfly factors).
-    There is no scatter anywhere. This shape matters on TPU: the original
+    There is no scatter anywhere. The original
     per-bucket vmap(dynamic_slice) + scatter-add executor measured 100x the
     op's speed of light on ragged multilevel chains (43 buckets x 5 stages:
     29.5 ms vs the 0.26 ms roofline); this executor is within a small factor
@@ -857,7 +846,7 @@ def _apply_plan(meta: _PlanMeta, params, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def pack(op: L.LinOp, dtype=None, block_align: int = 128,
-         real_embed: bool | None = None,
+         real_embed: bool = False,
          precision: str | None = "highest",
          tiling: str = "uniform",
          params_on_host: bool = False) -> StagePlan:

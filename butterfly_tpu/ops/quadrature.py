@@ -109,7 +109,7 @@ class KrAccumCorrector:
     Used when the system operator itself is matrix-free or compressed (the
     multiple-scattering example's FMM side).
 
-    TPU-native form: each row has exactly `2*order` corrected neighbors, so
+    Device form: each row has exactly `2*order` corrected neighbors, so
     the whole correction is a static (n, 2*order) coefficient table plus a
     same-shape gather-index table; `apply` is one vectorized
     gather-multiply-reduce (no scatter, batched over right-hand sides).

@@ -3,7 +3,7 @@
 Replacement for the reference's Chebyshev-series Bessel implementations
 (src/bessel.c:1-50 + GSL): the host oracle path calls scipy.special, while the
 device path implements J0/J1/Y0/Y1/H0/H1 directly in jnp so kernel evaluation
-can run inside jit/pallas on TPU:
+can run inside jit on the device:
 
 - |x| <= 12: ascending power series for J_nu and the log-series for Y_nu
   (NIST DLMF 10.2.2, 10.8.1), summed with a fixed trip count so the whole

@@ -27,7 +27,7 @@ split into S equal stage groups sharded over a ("stage",) mesh axis. The
 pipeline itself is the classic GPipe rotation written with shard_map +
 lax.ppermute: T = M + S - 1 steps, stage 0 injects microbatch t, every
 device applies its local level group, activations rotate one stage per step
-over ICI, the last stage banks finished microbatches (bubble fraction
+over the interconnect, the last stage banks finished microbatches (bubble fraction
 (S-1)/T, amortized away as M grows).
 """
 
@@ -165,7 +165,7 @@ class PipelinedButterfly:
     Levels split into `num_stages` equal groups; group s's weights are
     placed on stage device s (weight memory per chip drops by S); the RHS
     columns split into `num_micro` microbatches that rotate through the
-    stages with lax.ppermute over ICI.
+    stages with lax.ppermute.
     """
 
     def __init__(self, bf: UniformButterfly, mesh: Mesh,

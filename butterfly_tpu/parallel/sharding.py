@@ -14,7 +14,7 @@ Butterfly tensor parallelism: level l of a UniformButterfly has weights
 while hi divides the model-axis size, else axis 3 (lo) — one of the two is
 always shardable for NB >= R * n_model. Every level's GEMMs are then LOCAL;
 what moves between chips is the re-blocking of activations between levels —
-GSPMD lowers that resharding to all-to-all/collective-permute over ICI,
+GSPMD lowers that resharding to all-to-all/collective-permute over the interconnect,
 which is exactly the "per-level exchange of leaf-block activations" design
 in SURVEY.md §2.10. No hand-written communication.
 """

@@ -1,14 +1,13 @@
 """Explicit per-level butterfly exchange: shard_map + ONE all-to-all.
 
 SURVEY.md §2.10's central parallel design is "per-level all-to-all of
-leaf-block activations over ICI". The GSPMD path (parallel/sharding.py)
+leaf-block activations over the device interconnect". The GSPMD path (parallel/sharding.py)
 leaves the exchange to the compiler; this module is the EXPLICIT schedule —
 the distributed-FFT transpose applied to the butterfly:
 
   1. shard the NB leaf blocks contiguously over the model axis (top digits
      of the block index = shard id); all levels whose mixing stride stays
-     inside a shard run LOCALLY (einsum or the fused Pallas kernel per
-     shard);
+     inside a shard run LOCALLY (one einsum per level per shard);
   2. ONE tiled `lax.all_to_all` re-blocks activations so each shard owns
      the blocks with fixed LOW digits (the block transpose);
   3. the remaining log_R(D) levels — whose partners differ in TOP digits —
@@ -29,68 +28,35 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from butterfly_tpu.ops.butterfly import UniformButterfly
+from butterfly_tpu.ops.butterfly import UniformButterfly, apply_factor
 from butterfly_tpu.utils.errors import InvalidArgumentsError, check
 
 __all__ = ["ShardedButterfly"]
 
 
-def _shard_map(fn, mesh, in_specs, out_specs):
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
-    try:
-        # pallas_call inside shard_map needs varying-mesh-axis checking off
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-    except TypeError:  # older jax spells it check_rep / lacks the kwarg
-        return shard_map(fn, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs)
-
-
-def _body(axis, D, NB, R, n_local, meta, x_local, leaf, w1s, w2s):
+def _body(axis, D, NB, R, prec, x_local, leaf, w1s, w2s):
     """Per-shard apply: local levels, one all-to-all, top levels."""
     NBl = NB // D
     r = x_local.shape[-1]
-    blk_in = x_local.shape[0] // NBl
-    cur = x_local.reshape(NBl, blk_in, r)
-
-    if meta is not None:
-        # fused Pallas kernel for the local stage (kernel per shard)
-        from butterfly_tpu.ops.pallas_butterfly import _apply_fused
-
-        leafp, pass_ws = leaf, w1s
-        cur = _apply_fused(meta, (leafp, pass_ws), cur.reshape(NBl * blk_in, r))
-        cur = cur.reshape(NBl, -1, r)
-    else:
-        if leaf is not None:
-            cur = jnp.einsum("bmk,bkr->bmr", leaf, cur,
-                             preferred_element_type=jnp.float32)
-        for W in w1s:
-            hi, _, _, lo, m_, k_ = W.shape
-            c5 = cur.reshape(hi, R, lo, k_, r)
-            cur = jnp.einsum("hcdlmk,hdlkr->hclmr", W, c5,
-                             preferred_element_type=jnp.float32
-                             ).reshape(NBl, m_, r)
+    cur = x_local
+    for W in ([] if leaf is None else [leaf]) + list(w1s):
+        cur = apply_factor(W, cur, R, prec)
 
     if w2s:
+        cur = cur.reshape(NBl, -1, r)
         m_ = cur.shape[1]
         # block transpose: local block q = u*D + t -> make chunk t contiguous
         cur = cur.reshape(NBl // D, D, m_, r).swapaxes(0, 1).reshape(NBl, m_, r)
         # one tiled all-to-all over the model axis: shard t sends chunk t'
         # to shard t'; result index u' = s*NBl/D + u == global_block // D
         cur = jax.lax.all_to_all(cur, axis, split_axis=0, concat_axis=0,
-                                 tiled=True)
+                                 tiled=True).reshape(-1, r)
         for W in w2s:  # lo-axis pre-permuted local slices
-            hi, _, _, lo_loc, m2, k2 = W.shape
-            c5 = cur.reshape(hi, R, lo_loc, k2, r)
-            cur = jnp.einsum("hcdlmk,hdlkr->hclmr", W, c5,
-                             preferred_element_type=jnp.float32
-                             ).reshape(NBl, m2, r)
-    return cur.reshape(-1, r)
+            cur = apply_factor(W, cur, R, prec)
+    return cur
 
 
 class ShardedButterfly:
@@ -103,8 +69,7 @@ class ShardedButterfly:
     argmax id-map).
     """
 
-    def __init__(self, bf: UniformButterfly, mesh: Mesh, axis: str = "model",
-                 use_pallas: bool = False, fuse: int = 8, r_tile: int = 256):
+    def __init__(self, bf: UniformButterfly, mesh: Mesh, axis: str = "model"):
         self.mesh = mesh
         self.axis = axis
         self.R = R = bf.radix
@@ -147,58 +112,12 @@ class ShardedButterfly:
                 jax.device_put(Wp, ns(P(None, None, None, axis, None, None)))
             )
 
-        self._meta = None
-        if use_pallas and self.w1:
-            # fused local plan: a template butterfly with the LOCAL shapes;
-            # its transposed pass weights shard on the hi axis (axis 0),
-            # so P(axis) slices give each shard its own transposed weights
-            from butterfly_tpu.ops.pallas_butterfly import FusedButterflyPlan
-
-            NBl = NB // D
-            leaf_l = None if bf.leaf is None else np.asarray(bf.leaf[:NBl])
-            lvls_l = [np.asarray(W[: W.shape[0] // D]) for W in bf.levels[:n_local]]
-            template = UniformButterfly(
-                None if leaf_l is None else jnp.asarray(leaf_l),
-                [jnp.asarray(w) for w in lvls_l], R,
-            )
-            plan = FusedButterflyPlan(template, fuse=fuse, r_tile=r_tile)
-            self._meta = plan._meta
-            # rebuild the transposed params from the FULL weights and shard
-            full_plan = FusedButterflyPlan(
-                UniformButterfly(bf.leaf, list(bf.levels[:n_local]), R),
-                fuse=fuse, r_tile=r_tile,
-            )
-            check(
-                tuple(pm.k for pm in full_plan._meta.passes)
-                == tuple(pm.k for pm in plan._meta.passes),
-                "local/global pass split mismatch",
-            )
-            leafp, pass_ws = full_plan._params
-            if leafp is not None:
-                self.leaf = jax.device_put(
-                    leafp, ns(P(axis, None, None, None, None))
-                )
-            self.w1 = [
-                [jax.device_put(w, ns(P(axis, *([None] * (w.ndim - 1)))))
-                 for w in ws]
-                for ws in pass_ws
-            ]
-
-        body = functools.partial(_body, axis, D, NB, R, n_local, self._meta)
-        if self._meta is not None:
-            w1_specs = [
-                [P(axis, *([None] * (w.ndim - 1))) for w in ws]
-                for ws in self.w1
-            ]
-            leaf_spec = (
-                None if self.leaf is None else P(axis, None, None, None, None)
-            )
-        else:
-            w1_specs = [P(axis, None, None, None, None, None) for _ in self.w1]
-            leaf_spec = None if self.leaf is None else P(axis, None, None)
+        body = functools.partial(_body, axis, D, NB, R, bf.precision)
+        w1_specs = [P(axis, None, None, None, None, None) for _ in self.w1]
+        leaf_spec = None if self.leaf is None else P(axis, None, None)
         w2_specs = [P(None, None, None, axis, None, None) for _ in self.w2]
-        self._apply = jax.jit(_shard_map(
-            body, mesh,
+        self._apply = jax.jit(shard_map(
+            body, mesh=mesh,
             in_specs=(P(axis, None), leaf_spec, w1_specs, w2_specs),
             out_specs=P(axis, None),
         ))

@@ -1,6 +1,6 @@
 """Spatial 2^d-ary point trees: quadtree (d=2) and octree (d=3).
 
-TPU-native redesign of the reference quadtree/octree
+JAX redesign of the reference quadtree/octree
 (src/quadtree.c, src/quadtree_node.c:123-199, src/octree.c,
 src/octree_node.c): one generic dimension-parametric builder using vectorized
 NumPy partitioning of the permutation (the reference does an in-place 4-way

@@ -1,6 +1,6 @@
 """Generic host-side trees over permuted point sets.
 
-TPU-native redesign of the reference tree stack (src/tree.c, src/tree_node.c,
+JAX redesign of the reference tree stack (src/tree.c, src/tree_node.c,
 src/tree_level_iter.c, src/tree_iter_post_order.c; structs
 include/bf/tree.h:30-39, include/bf/tree_node.h:23-56):
 

@@ -3,7 +3,7 @@
 The reference compiles per-block point sets and shape assertions into its
 factorization engines under BF_DEBUG (src/fac_helm2.c:127-138,926-936) so
 mis-assembled blocks fail loudly during construction instead of surfacing
-as silent accuracy loss. The TPU build's equivalent is a runtime flag:
+as silent accuracy loss. This build's equivalent is a runtime flag:
 
     BUTTERFLY_DEBUG=1 python ...
 

@@ -1,6 +1,6 @@
 """Error types for butterfly_tpu.
 
-TPU-native replacement for the reference's sticky error-code system
+Python replacement for the reference's sticky error-code system
 (reference: src/error.c:9-24, include/bf/error_macros.h:3-27). Instead of
 OpenGL-style sticky codes + cleanup gotos, we use ordinary Python exceptions
 with a small typed hierarchy mirroring the reference's BfError enum.

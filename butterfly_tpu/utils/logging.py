@@ -1,6 +1,6 @@
 """Leveled structured logging.
 
-TPU-native replacement for the reference's printf logger
+Python replacement for the reference's printf logger
 (reference: src/logging.c:5-76, include/bf/logging.h:15-19). Same level
 lattice (TODO < DEBUG < INFO < WARN < ERROR), implemented on top of the
 stdlib logging module so it composes with host frameworks; adds a

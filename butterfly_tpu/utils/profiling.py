@@ -15,7 +15,56 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["OpCost", "op_cost", "roofline_report", "device_trace"]
+__all__ = ["OpCost", "op_cost", "roofline_report", "device_trace",
+           "DevicePeaks", "device_peaks", "time_call"]
+
+
+@dataclasses.dataclass(frozen=True)
+class DevicePeaks:
+    """Published dense peak rates of one device."""
+
+    bf16_tflops: float
+    tf32_tflops: float
+    f32_tflops: float  # outside the tensor cores
+    hbm_gbps: float
+    source: str
+
+
+_H100_SXM = DevicePeaks(
+    bf16_tflops=989.0, tf32_tflops=495.0, f32_tflops=67.0, hbm_gbps=3350.0,
+    source="NVIDIA H100 SXM data sheet, dense (no sparsity), 700 W")
+
+# keyed by jax's Device.device_kind
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+    "NVIDIA H100 SXM5 80GB": _H100_SXM,
+}
+
+
+def device_peaks(device_kind: str) -> DevicePeaks:
+    """The published peaks of `device_kind`; an unknown device is an error,
+    not a default."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}; "
+                       f"known: {sorted(PEAKS)}")
+    return PEAKS[device_kind]
+
+
+def time_call(fn, *args, reps: int = 10, warmup: int = 2) -> float:
+    """Median seconds of `fn(*args)`, each call ended by block_until_ready
+    (JAX returns before the device finishes). Warm-up calls compile."""
+    import time
+
+    import jax
+
+    for _ in range(warmup):
+        jax.block_until_ready(fn(*args))
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts))
 
 
 @dataclasses.dataclass
@@ -61,7 +110,7 @@ def roofline_report(
     hbm_gbps: float,
     dtype_bytes: int = 4,
 ) -> dict:
-    """Achieved throughput vs the op's per-chip speed of light.
+    """Achieved throughput vs the op's per-device speed of light.
 
     Speed-of-light time = max(compute-limit, minimum-traffic-limit) where the
     minimum traffic reads every weight byte once and the input/output once.

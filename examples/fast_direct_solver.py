@@ -168,7 +168,7 @@ def run_operator(args) -> None:
 
     if args.device:
         # amortized device path (VERDICT r2 item 8): pack the node
-        # operators once, run the substitution's GEMMs on the TPU for
+        # operators once, run the substitution's GEMMs on the device for
         # batched right-hand sides, refine to f64-grade residuals
         import jax
 
@@ -201,7 +201,7 @@ def main() -> None:
     ap.add_argument("--base", type=int, default=256)
     ap.add_argument("--operator", action="store_true")
     ap.add_argument("--device", action="store_true",
-                    help="also run the DeviceSolver amortized path (TPU)")
+                    help="also run the DeviceSolver amortized path (device)")
     args = ap.parse_args()
     if not args.device:  # host-math demos run on the f64 CPU backend
         jax.config.update("jax_platforms", "cpu")

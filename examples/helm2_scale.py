@@ -4,15 +4,15 @@ Reference parity with the multiple-scattering collector grid
 (examples/multiple_scattering/collect_multiple_scattering_data.py:10-13,
 k in logspace up to 250k points): factorize the 2D Helmholtz combined-field
 operator on an ellipse at n up to 65536 with points-per-wavelength held
-fixed (k grows with n), run the compressed apply on the TPU through the
-partition cell-kernel plan, check rel err against a row-sampled dense
+fixed (k grows with n), run the compressed apply on the device through the
+partition cell plan, check rel err against a row-sampled dense
 oracle (utils/oracle.py — no dense operator exists at these sizes), and
 solve the second-kind BIE with the device-resident GMRES driver
 (ops/linalg.py solve_gmres_plan: Krylov basis on chip, host sees only one
 Hessenberg column per iteration), so solve wall time ~= iters x apply.
 
 Usage:
-  python examples/helm2_scale.py --sizes 4096 16384 65536 --out HELM2_SCALE_r05.json
+  python examples/helm2_scale.py --sizes 4096 16384 65536 --out helm2_scale.json
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ def log(*a):
 
 
 def run_one(n: int, ppw: float, leaf: int, queries: int = 64):
+    """Factorize, plan, apply, check and solve one size; returns a record
+    of set-up times, apply time, accuracy and the GMRES result."""
     import jax
     import jax.numpy as jnp
 
@@ -40,85 +42,46 @@ def run_one(n: int, ppw: float, leaf: int, queries: int = 64):
     from butterfly_tpu.ops.linalg import solve_gmres_plan
     from butterfly_tpu.trees import Quadtree
     from butterfly_tpu.utils.oracle import row_oracle_rel_err
+    from butterfly_tpu.utils.profiling import time_call
 
     ell = Ellipse(1.0, 0.7, (0.0, 0.0), 0.3)
     X, _, Nrm, w = ell.sample_linspaced(n)
     perimeter = float(np.sum(w))
     k = 2 * np.pi * n / (ppw * perimeter)
     # exterior-Dirichlet combined field D - i*k*S: resonance-free, so
-    # GMRES converges at every wavenumber (S'-alone stalled near interior
-    # resonances at k~75: 300 iters, rel res 8e-3)
+    # GMRES converges at every wavenumber (S'-alone stalls near interior
+    # resonances)
     helm = Helm2(k=k, layer_pot=LayerPot.COMBINED_FIELD,
                  alpha=-1j * k, beta=1.0)
-    rec = {"n": n, "k": round(k, 1), "ppw": ppw}
+    rec = {"n": n, "k": k, "ppw": ppw}
     log(f"n={n}: k={k:.1f} (ppw={ppw})")
 
-    t0 = time.time()
-    # retry insurance for the long 65k runs: the fac build is deterministic
-    # (~11 min host time at 65k), so cache it across process restarts
-    import pickle
-    cache = f"/tmp/helm2_fac_{n}_{leaf}_{ppw}.pkl"
-    try:
-        with open(cache, "rb") as f:
-            tree, A = pickle.load(f)
-        log("  fac loaded from cache")
-    except (OSError, Exception):
-        tree = Quadtree(X, leaf_size=leaf, normals=Nrm)
-        A = fac_helm2.make_multilevel(helm, tree, tree)
-        try:
-            with open(cache, "wb") as f:
-                pickle.dump((tree, A), f, protocol=4)
-        except Exception:
-            pass
-    rec["setup_fac_s"] = round(time.time() - t0, 1)
-    log(f"  fac setup: {rec['setup_fac_s']} s")
+    t0 = time.perf_counter()
+    tree = Quadtree(X, leaf_size=leaf, normals=Nrm)
+    A = fac_helm2.make_multilevel(helm, tree, tree)
+    rec["setup_fac_s"] = time.perf_counter() - t0
+    log(f"  fac setup: {rec['setup_fac_s']:.1f} s")
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     plan = partition_apply_plan(A)
-    rec["setup_plan_s"] = round(time.time() - t0, 1)
-    rec["weights_mb"] = round(plan.nbytes() / 1e6, 1)
-    rec["dense_mb"] = round(n * n * 16 / 1e6, 1)
-    rec["compression_ratio"] = round(plan.nbytes() / (n * n * 16), 4)
+    rec["setup_plan_s"] = time.perf_counter() - t0
+    rec["weight_bytes"] = plan.nbytes()
+    rec["compression_ratio"] = plan.nbytes() / (n * n * 16)
     rec["num_mega_blocks"] = len(plan._mega)
-    rec["mega_streamed_mb"] = round(plan.mega_streamed_bytes / 1e6, 1)
-    log(f"  plan: {rec['setup_plan_s']} s, {rec['weights_mb']} MB "
+    rec["mega_streamed_bytes"] = plan.mega_streamed_bytes
+    log(f"  plan: {rec['setup_plan_s']:.1f} s, "
+        f"{plan.nbytes() / 1e6:.1f} MB "
         f"({rec['compression_ratio']:.4f} of dense c128)")
 
-    # ---- device apply throughput (dispatch-chained slope; NO fori) ------
+    # ---- device apply ----------------------------------------------------
     r = queries
     x0 = jax.random.normal(jax.random.key(0), (2 * n, r), jnp.float32)
-    summ = jax.jit(lambda a: jnp.sum(a))
-    normz = jax.jit(lambda y: y * jax.lax.rsqrt(jnp.mean(y * y) + 1e-30))
-
-    def step(c):
-        return normz(plan.apply_device(c))
-
-    try:
-        float(summ(step(x0)))
-    except Exception as e:  # RESOURCE_EXHAUSTED: apply transients do not
-        # fit next to the pinned mega weights — stream them all instead
-        log(f"  warmup apply failed ({str(e).splitlines()[0][:60]}); "
-            "unpinning mega weights and retrying")
-        plan.unpin_megas()
-        rec["mega_streamed_mb"] = round(plan.mega_streamed_bytes / 1e6, 1)
-        float(summ(step(x0)))
-
-    def rep(K):
-        cur = x0
-        t = time.perf_counter()
-        for _ in range(int(K)):
-            cur = step(cur)
-        float(summ(cur))
-        return time.perf_counter() - t
-
-    rep(2), rep(8)
-    t2 = min(rep(2) for _ in range(3))
-    t8 = min(rep(8) for _ in range(3))
-    per = (t8 - t2) / 6
-    flops = plan.flops_per_col() * r
-    rec["apply_ms"] = round(per * 1e3, 2)
-    rec["apply_tflops"] = round(flops / per / 1e12, 2)
-    log(f"  apply r={r}: {per*1e3:.2f} ms -> {rec['apply_tflops']} TFLOP/s")
+    per = time_call(plan.apply_device, x0)
+    rec["apply_r"] = r
+    rec["apply_ms"] = per * 1e3
+    rec["apply_tflops"] = plan.flops_per_col() * r / per / 1e12
+    log(f"  apply r={r}: {per * 1e3:.3f} ms -> "
+        f"{rec['apply_tflops']:.2f} TFLOP/s")
 
     # ---- accuracy vs row-sampled dense oracle ---------------------------
     rng = np.random.default_rng(0)
@@ -131,8 +94,8 @@ def run_one(n: int, ppw: float, leaf: int, queries: int = 64):
         return Kd @ zs
 
     rel, _ = row_oracle_rel_err(got, exact_rows, n, num_rows=128)
-    rec["rel_err_vs_dense"] = float(f"{rel:.2e}")
-    log(f"  rel err vs dense (128-row oracle): {rel:.2e}")
+    rec["rel_err_vs_dense"] = rel
+    log(f"  rel err vs dense (128-row oracle): {rel:.3e}")
 
     # ---- GMRES on the second-kind BIE (device-resident driver) ----------
     # system: (I/2 + (D - ikS)_w) sigma = u_inc of an interior source —
@@ -140,30 +103,32 @@ def run_one(n: int, ppw: float, leaf: int, queries: int = 64):
     # (examples/simple/helm2_bie.c:162-175), solved in the interleaved
     # real embedding with vectors on the device throughout.
     x_src = np.array([[0.1, -0.05]])
-    from butterfly_tpu.ops.helm2 import Helm2 as _H
-    rhs = _H(k=k, layer_pot=LayerPot.SINGLE).kernel_matrix(x_src, Xp)[:, 0]
-    wp = w[tree.perm]
-    wp2 = jnp.asarray(np.repeat(wp, 2), jnp.float32)
+    rhs = Helm2(k=k, layer_pot=LayerPot.SINGLE).kernel_matrix(x_src, Xp)[:, 0]
+    wp2 = jnp.asarray(np.repeat(w[tree.perm], 2), jnp.float32)
     b2 = np.empty(2 * n, np.float32)
     b2[0::2], b2[1::2] = rhs.real, rhs.imag
 
-    # all per-iteration glue jitted (eager jnp ops cost ~100 ms on this box)
     post = jax.jit(lambda v, y: 0.5 * v + y[:, 0])
     weigh = jax.jit(lambda v: (v * wp2)[:, None])
 
     def sys_apply(v):
         return post(v, plan.apply_device(weigh(v)))
 
-    t0 = time.time()
+    jax.block_until_ready(sys_apply(jnp.asarray(b2)))  # compile at r=1
+    t0 = time.perf_counter()
     res = solve_gmres_plan(sys_apply, jnp.asarray(b2), tol=3e-7,
                            restart=80, max_iter=300)
-    rec["gmres_s"] = round(time.time() - t0, 1)
+    jax.block_until_ready(res.x)
+    rec["gmres_s"] = time.perf_counter() - t0
     rec["gmres_iters"] = int(res.num_iter)
-    rec["gmres_rel_res"] = float(f"{res.residuals[-1]:.2e}")
+    rec["gmres_rel_res"] = float(res.residuals[-1])
     rec["gmres_converged"] = bool(res.converged)
     log(f"  GMRES: {res.num_iter} iters, rel res "
-        f"{res.residuals[-1]:.1e}, {rec['gmres_s']} s")
-    rec["device"] = str(jax.devices()[0])
+        f"{res.residuals[-1]:.2e}, {rec['gmres_s']:.3f} s")
+    dev = jax.devices()[0]
+    rec["device"] = dev.device_kind
+    rec["peak_bytes_in_use"] = (dev.memory_stats() or {}).get(
+        "peak_bytes_in_use")
     return rec
 
 

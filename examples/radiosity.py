@@ -2,7 +2,7 @@
 
 Parity with the reference example (examples/radiosity/radiosity.c): load a
 mesh, assemble the CSR view-factor matrix via the midpoint rule
-(src/mat_csr_real.c:387-440) with batched ray-traced visibility (the TPU
+(src/mat_csr_real.c:387-440) with batched ray-traced visibility (the device
 replacement for Embree, geom/visibility.py), then go further: solve the
 radiosity equation (I - diag(rho) F) B = E with GMRES and report timings and
 sparsity — the metrics the reference prints plus the solve it stops short of.

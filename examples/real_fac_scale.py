@@ -1,24 +1,19 @@
 """REAL streamed factorization at scale: 16384 x 4096 stream -> distill ->
-fused Pallas apply, with the f32 accuracy clause checked against dense.
+per-level einsum apply, with the f32 accuracy clause checked against dense.
 
-VERDICT r4 item 5: the 1e-6 accuracy clause was carried only by a 4096x1024
-toy inside bench.py; this artifact runs the same pipeline at 16x the
-operator area. It is a standalone artifact (REAL_FAC_r05.json) rather than
-a bench.py section because the host-side streaming alone costs ~100 s on
-this box's 2 CPU cores — it does not fit the driver's 420 s bench budget
-next to the other sections; bench.py keeps an in-budget smaller instance
-for round-over-round repeatability.
+The same pipeline as bench.py section D at 16x the operator area; it is a
+standalone script because the host-side streaming and distillation take
+minutes at this size.
 
 Reference workload analogue: the frequency-domain butterfly compression of
 LBO eigenvector matrices (src/lbo.c:70-150; examples/lbo/bf_lbo.c:343-348).
 
-Usage:  python examples/real_fac_scale.py --out REAL_FAC_r05.json
+Usage:  python examples/real_fac_scale.py --out real_fac.json
 """
 
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import sys
 import time
@@ -44,9 +39,9 @@ def main() -> None:
     from butterfly_tpu.config import FacSpec
     from butterfly_tpu.fac.streamer import FacStreamer
     from butterfly_tpu.fac.uniformize import uniformize_fused
-    from butterfly_tpu.ops.pallas_butterfly import _apply_fused
     from butterfly_tpu.trees import uniform_tree
     from butterfly_tpu.utils.cache import enable_persistent_compile_cache
+    from butterfly_tpu.utils.profiling import time_call
 
     enable_persistent_compile_cache()
 
@@ -72,8 +67,7 @@ def main() -> None:
     log(f"stream: {rec['stream_s']} s")
 
     t0 = time.perf_counter()
-    fp = uniformize_fused(fac, tol=1e-7, dtype=np.float32,
-                          fuse=8, r_tile=256)
+    fp = uniformize_fused(fac, tol=1e-7, dtype=np.float32)
     rec["distill_s"] = round(time.perf_counter() - t0, 1)
     rec["rank"] = fp.rank
     rec["weights_mb"] = round(fp.nbytes() / 1e6, 1)
@@ -82,44 +76,14 @@ def main() -> None:
     log(f"distill: {rec['distill_s']} s, rank {fp.rank}, "
         f"{rec['weights_mb']} MB")
 
-    # ---- fused apply throughput (dispatch-chained slope) ----------------
+    # ---- apply throughput ----------------------------------------------
     xD = jax.block_until_ready(jax.random.normal(
         jax.random.key(1), (mD, r), jnp.float32))
-    fnD = functools.partial(_apply_fused, fp.plan._meta)
-    _summ = jax.jit(lambda a: jnp.sum(a))
-
-    def step_D(params, cur):
-        y = fnD(params, cur)
-        return cur + 1e-30 * jnp.sum(y)
-
-    jfn = jax.jit(step_D)
-    float(_summ(jfn(fp.plan._params, xD)))
-
-    def rep(K):
-        cur = xD
-        t = time.perf_counter()
-        for _ in range(int(K)):
-            cur = jfn(fp.plan._params, cur)
-        float(_summ(cur))
-        return time.perf_counter() - t
-
-    rep(4), rep(24)
-    t1 = min(rep(4) for _ in range(3))
-    t2 = min(rep(24) for _ in range(3))
-    per = (t2 - t1) / 20
+    per = time_call(fp.apply_butterfly_order, xD)
     flops = fp.flops_per_col() * r
-    rec["apply_ms"] = round(per * 1e3, 3)
-    rec["apply_tflops"] = round(flops / per / 1e12, 2)
-    try:
-        with open("BENCH_CONSTANTS.json") as f:
-            peak = float(json.load(f)["peak_f32_hp_tflops"])
-        rec["sol_frac_vs_f32hp_peak"] = round(
-            rec["apply_tflops"] / peak, 3)
-        rec["peak_f32_hp_tflops"] = peak
-    except (OSError, ValueError, KeyError):
-        pass
-    log(f"apply r={r}: {rec['apply_ms']} ms -> {rec['apply_tflops']} "
-        f"TFLOP/s (sol {rec.get('sol_frac_vs_f32hp_peak', '?')})")
+    rec["apply_ms"] = per * 1e3
+    rec["apply_tflops"] = flops / per / 1e12
+    log(f"apply r={r}: {rec['apply_ms']} ms -> {rec['apply_tflops']} TFLOP/s")
 
     # ---- accuracy vs dense ----------------------------------------------
     xs = np.random.default_rng(0).standard_normal((mD, 4)).astype(np.float32)

@@ -1,7 +1,7 @@
-"""Butterfly-compressed embedding retrieval on TPU.
+"""Butterfly-compressed embedding retrieval on the device.
 
-The flagship TPU workload (BASELINE configs[1,2]): compress an embedding
-table, score query batches against it on the MXU, take top-k on chip, and
+The flagship workload (BASELINE configs[1,2]): compress an embedding
+table, score query batches against it on the device, take top-k there, and
 report recall@100 vs exact dense scoring plus throughput.
 
 Two formats (see butterfly_tpu/models/retrieval.py for the measured scope):

@@ -3,7 +3,7 @@
 // The reference keeps its whole mesh pipeline in C (src/trimesh.c, 1795 LoC:
 // OBJ load bfTrimeshNewFromObjFile, adjacency, boundary detection, and the
 // P1 FEM Laplace-Beltrami assembly bfTrimeshGetLboFemDiscretization,
-// src/trimesh.c:1470-1610). This file is the TPU framework's native
+// src/trimesh.c:1470-1610). This file is the framework's native
 // equivalent of the host-side (setup-time) part of that pipeline; the
 // device-side apply stays in JAX/Pallas. Exposed through a plain C ABI and
 // bound with ctypes (butterfly_tpu/geom/native.py); the NumPy implementations

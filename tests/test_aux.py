@@ -153,3 +153,50 @@ def test_native_tree_matches_numpy(rng):
     a = [(n.depth, n.i0, n.i1) for l in tn.levels() for n in l]
     b = [(n.depth, n.i0, n.i1) for l in tp.levels() for n in l]
     assert a == b
+
+
+def test_device_peaks_known_and_unknown():
+    from butterfly_tpu.utils.profiling import device_peaks
+
+    p = device_peaks("NVIDIA H100 80GB HBM3")
+    assert p.bf16_tflops == 989.0 and p.hbm_gbps == 3350.0
+    with pytest.raises(KeyError):
+        device_peaks("cpu")
+
+
+@pytest.mark.parametrize("env", [True, False])
+def test_compile_cache_dir(monkeypatch, tmp_path, env):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise one fixed
+    directory inside the checkout."""
+    import os
+
+    from butterfly_tpu.utils import cache
+
+    if env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.compile_cache_dir() == str(tmp_path)
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert cache.compile_cache_dir() == os.path.join(root, ".jax_cache")
+
+
+def test_bench_level_costs():
+    """bench.py's per-level bytes and flops for a small chain."""
+    import importlib.util
+    import pathlib
+
+    import jax.numpy as jnp
+
+    from butterfly_tpu.ops.butterfly import random_butterfly
+
+    spec = importlib.util.spec_from_file_location(
+        "_bench", pathlib.Path(__file__).parent.parent / "bench.py")
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    bf = random_butterfly(8, 4, dtype=jnp.float32)
+    costs = bench.level_costs(bf, r=2, act_bytes=4)
+    assert [c[0] for c in costs] == ["leaf", "level0", "level1", "level2"]
+    assert sum(c[1] for c in costs) == bf.flops_per_col() * 2
+    # weights once, plus each factor's input and output activations
+    assert costs[1][2] == bf.levels[0].nbytes + 8 * (4 + 4) * 2 * 4

@@ -81,12 +81,11 @@ def test_distill_from_streamed_fac():
     assert rel < 1e-6, f"rel {rel:.2e}"
 
 
-def test_uniformize_fused_pallas_interpret():
-    """The fused Pallas kernel (interpret mode on CPU) applies a distilled
-    REAL fac and matches the dense oracle — VERDICT r2 item 2."""
+def test_uniformize_fused_einsum_apply():
+    """A distilled REAL fac applied by its per-level einsums matches the
+    dense oracle, in canonical and in butterfly row order."""
     Phi, fac = _streamed_fac()
-    fp = uniformize_fused(fac, tol=1e-7, dtype=np.float32, r_tile=128,
-                          interpret=True)
+    fp = uniformize_fused(fac, tol=1e-7, dtype=np.float32)
     x = np.random.default_rng(3).standard_normal(
         (Phi.shape[1], 8)).astype(np.float32)
     y = np.asarray(fp.apply(x))        # canonical row order

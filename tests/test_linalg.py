@@ -161,7 +161,7 @@ def test_gmres_device_resident(rng):
 
 
 def test_gmres_device_on_real_embedded_plan(rng):
-    """Complex Helmholtz-style GMRES on this TPU backend: the system rides
+    """Complex Helmholtz-style GMRES through the real embedding: the system rides
     the 2x2 real-embedded packed plan and the device solver stays real."""
     from butterfly_tpu.ops.linalg import solve_gmres_device
     from butterfly_tpu.ops.linop import Dense

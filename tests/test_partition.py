@@ -47,8 +47,7 @@ def test_partition_handles_undersized_tile_lists(helm_fac):
     batched GEMM works at any size) and oversized butterfly blocks take
     the per-block stage-plan path — the plan must still match the fac."""
     nE, A = helm_fac
-    pp = partition_apply_plan(A, dense_tiles=(8,), bf_tiles=(8,),
-                              dense_materialize_limit_bytes=0)
+    pp = partition_apply_plan(A, dense_tiles=(8,), bf_tiles=(8,))
     rng = np.random.default_rng(5)
     zs = rng.standard_normal((nE, 2)) + 1j * rng.standard_normal((nE, 2))
     got = pp.apply_complex(zs)
@@ -58,11 +57,10 @@ def test_partition_handles_undersized_tile_lists(helm_fac):
 
 
 def test_partition_blockwise_extraction_matches(helm_fac):
-    """Forcing the O(block-areas) block-wise extraction (the >16k-points
-    path, dense_materialize_limit_bytes=0) must reproduce the full-dense
-    materialization path to fp accuracy."""
+    """The O(block-areas) block-wise extraction of member blocks (host
+    chains) reproduces the operator to fp accuracy."""
     nE, A = helm_fac
-    pp = partition_apply_plan(A, dense_materialize_limit_bytes=0)
+    pp = partition_apply_plan(A)
     rng = np.random.default_rng(1)
     zs = rng.standard_normal((nE, 3)) + 1j * rng.standard_normal((nE, 3))
     got = pp.apply_complex(zs)
@@ -83,8 +81,7 @@ def test_partition_oversized_blocks_via_stage_plans():
     helm = Helm2(k=40.0, layer_pot=LayerPot.SINGLE)
     tree = Quadtree(X, leaf_size=32, normals=Nrm)
     A = fac_helm2.make_multilevel(helm, tree, tree)
-    pp = partition_apply_plan(A, bf_tiles=(256,),
-                              dense_materialize_limit_bytes=0)
+    pp = partition_apply_plan(A, bf_tiles=(256,))
     assert pp._mega, "expected oversized blocks with a 256 tile cap"
     rng = np.random.default_rng(2)
     zs = rng.standard_normal((nE, 3)) + 1j * rng.standard_normal((nE, 3))
@@ -115,9 +112,7 @@ def test_partition_streamed_megas_match():
     path."""
     nE = 2048
     A = _oversized_fac(nE)
-    pp = partition_apply_plan(A, bf_tiles=(256,),
-                              dense_materialize_limit_bytes=0,
-                              mega_resident_bytes=0)
+    pp = partition_apply_plan(A, bf_tiles=(256,), mega_resident_bytes=0)
     assert pp._mega and pp.mega_streamed_bytes > 0
     rng = np.random.default_rng(3)
     zs = rng.standard_normal((nE, 2)) + 1j * rng.standard_normal((nE, 2))
@@ -139,9 +134,7 @@ def test_gmres_plan_on_partition_end_to_end():
 
     nE = 2048
     A = _oversized_fac(nE)
-    pp = partition_apply_plan(A, bf_tiles=(256,),
-                              dense_materialize_limit_bytes=0,
-                              mega_resident_bytes=0)
+    pp = partition_apply_plan(A, bf_tiles=(256,), mega_resident_bytes=0)
     rng = np.random.default_rng(4)
     w = np.full(nE, 2 * np.pi / nE)
     w2 = jnp.asarray(np.repeat(w, 2), jnp.float32)

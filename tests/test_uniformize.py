@@ -77,7 +77,7 @@ def test_uniformize_auto_align(rng):
 
 def test_uniformize_helm2_real_embed(rng):
     """The multilevel Helmholtz factorization through the device path with
-    the 2x2 real embedding (the TPU-compatible complex route) — rel err vs
+    the 2x2 real embedding (the real-only complex route) — rel err vs
     the host oracle must be exact at c128/f64."""
     from butterfly_tpu.fac import helm2 as fac_helm2
     from butterfly_tpu.geom import Ellipse
@@ -99,7 +99,7 @@ def test_uniformize_helm2_real_embed(rng):
     assert rel < 1e-10, f"real-embed device path rel err {rel:.3e}"
     assert np.iscomplexobj(got)
 
-    # c64-precision route (what the TPU actually runs) stays inside the
+    # c64-precision route (what the device runs) stays inside the
     # BASELINE 1e-6 rel-err budget.
     plan32 = uniformize(A, dtype=np.complex64, block_align=32, real_embed=True)
     got32 = np.asarray(plan32(x))
